@@ -57,7 +57,7 @@ class App:
         skyIllumination: float = 1.0,
         tileSize: int = 1,
         scene: Scene | None = None,
-        dragon: str = "stanford_minidragon",
+        dragon: str | None = None,
         headless: bool | None = None,
         max_frames: int = 64,
         output: str | None = None,
@@ -156,7 +156,7 @@ class App:
             self._main_interactive()
 
     def _main_headless(self) -> None:
-        from opengl_raytracer_tpu.utils.profiling import device_sync
+        import jax
 
         last = time.time()
         # A full sweep is num_tiles_x * num_tiles_y steps — NOT tile_size**2:
@@ -167,7 +167,7 @@ class App:
             self.state = self.renderer.step(self.state, self.camera,
                                             lambertian=self.lambertian)
             if self.state.tile_x == 0 and self.state.tile_y == 0:
-                device_sync(self.state.accum)  # honest per-frame timing
+                jax.block_until_ready(self.state.accum)  # per-frame timing
                 now = time.time()
                 print(
                     f"\rFrame {self.state.frame_count}  "
@@ -187,7 +187,7 @@ class App:
 
         pg.init()
         surface = pg.display.set_mode(self.screen_size)
-        pg.display.set_caption("TPU raytracer")
+        pg.display.set_caption("JAX raytracer")
         running = True
         fps = 0.0
         delta_time = 0.0
@@ -273,7 +273,7 @@ class App:
                 fps = 1.0 / delta_time if delta_time > 0 else 0.0
                 last_frame_time = time.time()
                 pg.display.set_caption(
-                    f"TPU raytracer! Fps: {round(fps)} "
+                    f"JAX raytracer! Fps: {round(fps)} "
                     f"Frame: {frame_count} "
                     f"Frame render time: {round(delta_time * 1000)}ms "
                     f"Total render time: {self.get_time()}"

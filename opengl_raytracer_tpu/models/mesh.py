@@ -9,9 +9,8 @@ arrays after the CPU bake, plus flat material attributes, exactly what
 Asset resolution is broader than the reference's hard-coded ``models/<dir>``
 join (object.py:9): ``dirPath`` may be a directory containing one ``.obj``, a
 direct path to an ``.obj`` file, or a bare name searched along
-``OGLRT_MODELS_PATH`` (default: ``./models`` then the mounted reference's
-``models`` dir).  This makes the benchmark harness accept arbitrary OBJs
-(stripped assets can be supplied at eval time).
+``OGLRT_MODELS_PATH`` (default: ``./models``).  This lets a user render
+any OBJ of their own; the default scene needs none (models/procedural.py).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import numpy as np
 from opengl_raytracer_tpu.models.obj import load_obj
 from opengl_raytracer_tpu.models.transforms import bake_world
 
-_DEFAULT_SEARCH = ["models", "/root/reference/models"]
+_DEFAULT_SEARCH = ["models"]
 
 
 def resolve_obj_path(dir_path: str) -> str:

@@ -8,7 +8,7 @@ broadcast happens in NumPy, but the "upload" is the construction of a
 :class:`SceneData` pytree of JAX arrays — SoA with no GL padding (the
 ``_pad*`` fields in scene.py:45-70 are a std430 artifact we drop).
 
-TPU-first differences:
+Differences from the reference's layout:
 
 * triangles are stored as ``v0`` plus the two edges and the precomputed
   (non-unit) face normal ``cross(e1, e2)`` — the Möller–Trumbore inner loop
@@ -17,7 +17,7 @@ TPU-first differences:
 * triangle arrays are permuted into BVH leaf order, so leaves are contiguous
   ranges and the reference's ``triangleIndices`` indirection buffer
   (fragment.glsl:102-104) disappears;
-* arrays are padded to a lane-friendly multiple with degenerate (zero-area)
+* arrays are padded to a multiple of 8 with degenerate (zero-area)
   triangles, which the intersector rejects via its existing parallel-ray
   epsilon test (fragment.glsl:120-123), so padding needs no special casing.
 """
@@ -58,40 +58,11 @@ class SceneData(NamedTuple):
     node_miss: jnp.ndarray  # (N,) int32
     node_first: jnp.ndarray  # (N,) int32
     node_count: jnp.ndarray  # (N,) int32
-    # Packed records for the Pallas kernel (ops/pallas_traversal.py):
-    # VMEM-tiling-aware layout — 8 triangles per 128-lane row, leaves
-    # aligned to row starts so a leaf is one contiguous sublane load.
-    pw_tiles: jnp.ndarray  # (W/8, 8, 128) f32: children bounds + packed
-    #   per-octant ordered push entries in the free lanes (ops/wide_bvh.py)
-    pw_entry: jnp.ndarray  # (W, 8) i32 child entries in slot order
-    pl_tri_tiles: jnp.ndarray  # (G, 8, 128) f32 octet tiles: tris on sublanes
-    pl_remap: jnp.ndarray  # (slots,) i32 aligned slot -> permuted tri
-    # Sub-block (work-stealing) kernel tables (ops/wide2.py /
-    # ops/subblock_traversal.py): row-layout wide nodes + one-octet leaves.
-    # Empty (0, 128) when the scene exceeds the kernel's caps.
-    p2_node_rows: jnp.ndarray  # (Wp, 128) f32
-    p2_tri_rows: jnp.ndarray  # (Qp, 128) f32
-    p2_remap: jnp.ndarray  # (Qp*8,) i32 slot -> permuted tri
-    # Extra sub-block parts for scenes whose tables exceed one VMEM budget
-    # (ops/wide2.build_subblock_parts): each entry is (node_rows, tri_rows,
-    # remap) of an independent spatial partition; traversal chains them
-    # with cross-part best-t pruning.  () when one part suffices.
-    p2_extra: tuple
-    # Shading data packed into ONE 24-wide row: TPU XLA gathers cost ~the
-    # same per ROW as per element, so finalize_hit's per-triangle material
-    # and normal fetch is a single row-gather (measured ~100 ms for eight
-    # column gathers -> ~30 ms for three 8-wide rows -> ~13 ms for one
-    # 24-wide row, per 2M-ray bounce segment).
+    # Shading data packed into ONE 24-wide row, so finalize_hit fetches a
+    # hit's material and normals with one row gather.
     sh_abc: jnp.ndarray  # (T, 24) [n0.xyz, n1.xyz, emission, roughness,
     #                               n2.xyz, face.xyz, 0, 0,
     #                               color.xyz, emission_color.xyz, 0, 0]
-    # Slot-order copy of sh_abc: row s = sh_abc[remap[s]] across all
-    # sub-block parts (slot bases accumulate in part order).  Lets
-    # finalize_hit gather shading straight from the kernel's winning
-    # slot, skipping the slot->tri remap gather (14.8 ms per 2M rays —
-    # 4x the cost of the row gather itself).  (0, 24) when no sub-block
-    # tables exist.
-    sh_slot: jnp.ndarray  # (S, 24)
 
     @property
     def num_tris(self) -> int:
@@ -259,87 +230,6 @@ class Scene:
             node_first = np.array([0], dtype=np.int32)
             node_count = np.array([self.total_triangles], dtype=np.int32)
 
-        N = node_miss.shape[0]
-
-        # Octet-aligned triangle table for the Pallas kernel: each leaf's
-        # triangles are copied to an 8-aligned slot range (padding slots are
-        # zero/degenerate), then packed into (8, 128) tiles with triangles
-        # on SUBLANES: slot s = g*64 + k*8 + j -> tile g, sublane j, lanes
-        # [k*16, k*16+16).  See ops/pallas_traversal.py.
-        tpr = 8  # triangles per octet
-        leaf_octets_pad = -(-self.max_leaf_tris // tpr)
-        leaf_ids = np.nonzero(node_count > 0)[0]
-        counts = node_count[leaf_ids].astype(np.int64)
-        aligned_counts = -(-counts // tpr) * tpr
-        offsets = np.concatenate(([0], np.cumsum(aligned_counts)))
-        # Slack so a leaf's fixed-octet load can never run off the table,
-        # then round up to whole 64-triangle tiles.
-        t_aligned = int(offsets[-1]) + leaf_octets_pad * tpr
-        t_aligned = -(-t_aligned // 64) * 64
-
-        leaf_first_octet = np.zeros(N, np.int32)
-        leaf_first_octet[leaf_ids] = (offsets[:-1] // tpr).astype(np.int32)
-
-        pl_remap = np.zeros(t_aligned, np.int64)
-        valid = np.zeros(t_aligned, bool)
-        for off, first, cnt in zip(offsets[:-1], node_first[leaf_ids], counts):
-            pl_remap[off:off + cnt] = np.arange(first, first + cnt)
-            valid[off:off + cnt] = True
-
-        tri16 = np.zeros((v0.shape[0], 16), np.float32)
-        tri16[:, 0:3] = v0
-        tri16[:, 3:6] = e1
-        tri16[:, 6:9] = e2
-        tri16[:, 9:12] = face
-        aligned16 = np.zeros((t_aligned, 16), np.float32)
-        aligned16[valid] = tri16[pl_remap[valid]]
-        # (G, octet k, tri j, comp c) -> (G, sublane j, lane k*16+c)
-        pl_tri_tiles = (
-            aligned16.reshape(t_aligned // 64, 8, 8, 16)
-            .transpose(0, 2, 1, 3)
-            .reshape(t_aligned // 64, 8, 128)
-        )
-
-        # 8-wide collapse for the Pallas kernel (ops/wide_bvh.py).
-        from opengl_raytracer_tpu.ops.bvh import BVH as _BVH
-        from opengl_raytracer_tpu.ops.wide_bvh import collapse_wide
-
-        if self.bvh is not None:
-            binary = self.bvh
-        else:
-            binary = _BVH(
-                node_min=node_min, node_max=node_max, node_miss=node_miss,
-                node_first=node_first, node_count=node_count,
-                perm=perm, depth=0,
-            )
-        wide = collapse_wide(binary, leaf_first_octet)
-
-        # Sub-block kernel tables: separate leaf<=8 build over the FINAL
-        # (permuted) triangles; remap lands directly in that index space.
-        # Scenes whose tables exceed one VMEM budget are split into
-        # spatial parts (VERDICT item 6 de-cliffing).
-        from opengl_raytracer_tpu.ops.wide2 import build_subblock_parts
-
-        T = self.total_triangles
-        p2_extra: tuple = ()
-        try:
-            if T > 0:
-                parts = build_subblock_parts(v0[:T], v1[:T], v2[:T], tri16[:T])
-                p2_node_rows = parts[0].node_rows
-                p2_tri_rows = parts[0].tri_rows
-                p2_remap = parts[0].remap
-                p2_extra = tuple(
-                    (jnp.asarray(p.node_rows), jnp.asarray(p.tri_rows),
-                     jnp.asarray(p.remap))
-                    for p in parts[1:]
-                )
-            else:
-                raise ValueError("empty scene")
-        except ValueError:
-            p2_node_rows = np.zeros((0, 128), np.float32)
-            p2_tri_rows = np.zeros((0, 128), np.float32)
-            p2_remap = np.zeros((0,), np.int32)
-
         n0p = permute_pad(self.n0)
         n1p = permute_pad(self.n1)
         n2p = permute_pad(self.n2)
@@ -358,14 +248,6 @@ class Scene:
         sh_abc[:, 16:19] = colp
         sh_abc[:, 19:22] = emcp
 
-        if p2_remap.shape[0] > 0:
-            remaps_np = [np.asarray(p2_remap)] + [
-                np.asarray(r) for (_, _, r) in p2_extra]
-            sh_slot = np.concatenate(
-                [sh_abc[np.clip(r, 0, Tp - 1)] for r in remaps_np])
-        else:
-            sh_slot = np.zeros((0, 24), np.float32)
-
         self._device = SceneData(
             v0=jnp.asarray(v0),
             e1=jnp.asarray(e1.astype(np.float32)),
@@ -383,16 +265,7 @@ class Scene:
             node_miss=jnp.asarray(node_miss),
             node_first=jnp.asarray(node_first),
             node_count=jnp.asarray(node_count),
-            pw_tiles=jnp.asarray(wide.tiles),
-            pw_entry=jnp.asarray(wide.entry),
-            pl_tri_tiles=jnp.asarray(pl_tri_tiles),
-            pl_remap=jnp.asarray(pl_remap.astype(np.int32)),
-            p2_node_rows=jnp.asarray(p2_node_rows),
-            p2_tri_rows=jnp.asarray(p2_tri_rows),
-            p2_remap=jnp.asarray(p2_remap),
-            p2_extra=p2_extra,
             sh_abc=jnp.asarray(sh_abc),
-            sh_slot=jnp.asarray(sh_slot),
         )
         return self._device
 

@@ -12,11 +12,11 @@
 //   method 1 — binned SAH (16 bins, ALL THREE axes, binned by triangle-box
 //              centers): picks the (axis, bin) split minimizing
 //              surface-area * count.  The earlier largest-centroid-axis-only
-//              sweep cost ~13% more packet iterations in the calibrated
-//              traversal simulator (experiments/sbvh_sim.py: 47.9 vs 55.1
-//              iters/packet on 1080p bounce-2 packets); spatial splits
-//              (SBVH) measured a LOSS there (+15% octet pops at 1.11x
-//              reference duplication), so object splits stay.
+//              sweep cost ~13% more packet iterations in a traversal
+//              simulator (47.9 vs 55.1 iters/packet on 1080p bounce-2
+//              packets); spatial splits (SBVH) measured a LOSS there
+//              (+15% leaf visits at 1.11x reference duplication), so
+//              object splits stay.
 //
 // C ABI for ctypes; caller allocates 2T-sized node arrays (a binary BVH with
 // non-empty leaves has < 2T nodes).

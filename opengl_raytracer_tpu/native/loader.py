@@ -12,38 +12,54 @@ is available.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_LIB_PATH = os.path.join(_HERE, "_liboglrt.so")
 _SOURCES = ["objparser.cpp", "bvh.cpp"]
+# Portable flags (no -march=native): a library built on one host must run
+# on any host of the same machine type.
+_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def lib_path(srcs) -> str:
+    """Library file keyed by the sources' contents, the compiler flags and
+    the host's machine type, so a stale or foreign build is never
+    loaded."""
+    h = hashlib.sha256(" ".join(_FLAGS + [platform.machine()]).encode())
+    for src in srcs:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_HERE, f"_liboglrt-{h.hexdigest()[:16]}.so")
+
+
+def _build() -> str | None:
+    """Path of the built library (building it if needed), or None."""
     srcs = [os.path.join(_HERE, s) for s in _SOURCES]
     if not all(os.path.exists(s) for s in srcs):
-        return False
-    if os.path.exists(_LIB_PATH):
-        newest_src = max(os.path.getmtime(s) for s in srcs)
-        if os.path.getmtime(_LIB_PATH) >= newest_src:
-            return True
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        *srcs, "-o", _LIB_PATH,
-    ]
+        return None
+    path = lib_path(srcs)
+    if os.path.exists(path):
+        return path
+    # Build under a private name, then rename: concurrent processes never
+    # load a half-written library.
+    tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
+        subprocess.run(["g++", *_FLAGS, *srcs, "-o", tmp], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, path)
     except (subprocess.SubprocessError, OSError):
-        return False
+        return None
+    return path
 
 
 def get_lib():
@@ -53,10 +69,11 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not _build():
+        path = _build()
+        if path is None:
             return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(path)
         except OSError:
             return None
 

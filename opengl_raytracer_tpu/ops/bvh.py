@@ -8,7 +8,7 @@ sliceBoundingBox boundingBoxes.pyx:162-175, flatten scene.py:148-221).
 
 This builder keeps the same split rule (mean split on the max-extent axis of
 triangle centroids, centroids = mean of the three vertices, scene.py:94-97)
-but emits a TPU-first layout instead of the GL one:
+but emits a stackless, vectorizable layout instead of the GL one:
 
 * nodes are stored in **DFS preorder with miss links** ("skip pointers"), so
   device traversal needs no per-ray stack: on AABB hit an internal node falls

@@ -83,7 +83,7 @@ def ray_dirs_soa(camera: Camera, u: jnp.ndarray, v: jnp.ndarray,
                  fov: float = math.radians(90.0),
                  aspect: float | None = None) -> tuple:
     """SoA form of :func:`ray_dirs`: returns a 3-tuple of (R,) direction
-    columns (see ops/integrator.py for why columns beat (R, 3) on TPU)."""
+    columns (see ops/integrator.py for why the renderer keeps columns)."""
     if aspect is None:
         aspect = width / height
     dir_start_x = -fov / 2.0 * aspect

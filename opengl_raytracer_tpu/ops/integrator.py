@@ -9,10 +9,9 @@ Faithful vectorization of the shader's path logic:
 * ``lerp()`` (fragment.glsl:234-240) blends the normalized diffuse and
   mirror-reflection directions by ``1 - roughness`` and renormalizes:
   roughness 1 -> pure diffuse, 0 -> mirror.
-``raycast_fn(o3, d3, alive, primary=...)`` receives the ray components as
-3-tuples of (R,) columns plus the live-ray mask so traversal can skip work
-for terminated paths, and a static ``primary`` hint (bounce index 0) that
-lets backends pick segment-tuned kernel variants (renderer.make_raycast_fn).
+``raycast_fn(o3, d3, alive)`` receives the ray components as 3-tuples of
+(R,) columns plus the live-ray mask so traversal can skip work for
+terminated paths (renderer.make_raycast_fn).
 
 * the bounce loop (fragment.glsl:309-350) adds ``emission_color * emission *
   rayColor`` on every hit (doubled in lambertian mode, fragment.glsl:329-331),
@@ -29,14 +28,10 @@ dead rays carry an ``alive`` mask — the vector analog of the shader's
 breaks — and contribute exactly their frozen light to every later bounce.
 
 ALL per-ray state is SoA — vec3 quantities travel as 3-tuples of (R,)
-columns, never (R, 3) arrays.  On TPU an (R, 3) f32 array puts the 3-wide
-minor dim on the 128-lane axis, so every elementwise op either runs at
-3/128 lane utilization or pays a layout-transposing copy; measured on the
-1080p frame the AoS glue (finalize + scatter + state updates) cost
-~70 ms/frame in dozens of separate 1.4-ms fusions.  Columns keep every op
-dense and let XLA fuse each bounce's shading/update math into a few
-single-pass kernels.  The multi-operand reorder sort already carries
-scalar columns, so SoA also deletes its stack/unstack copies.
+columns, never (R, 3) arrays.  Columns keep every elementwise op dense and
+let XLA fuse each bounce's shading/update math into a few single-pass
+kernels.  The multi-operand reorder sort already carries scalar columns,
+so SoA also saves its stack/unstack copies.
 """
 
 from __future__ import annotations
@@ -122,7 +117,7 @@ def scatter_soa(seed, n3, d3, roughness, lambertian):
 
 def scatter(seed, normal, ray_dir, roughness, lambertian):
     """AoS wrapper over :func:`scatter_soa` (compatibility surface for
-    tests/experiments): (R, 3) arrays in, (new_seed, (R, 3)) out."""
+    tests and on-card checks): (R, 3) arrays in, (new_seed, (R, 3)) out."""
     seed, d = scatter_soa(seed, _as_soa(normal), _as_soa(ray_dir),
                           roughness, lambertian)
     return seed, jnp.stack(d, axis=-1)
@@ -130,7 +125,6 @@ def scatter(seed, normal, ray_dir, roughness, lambertian):
 
 def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
              lambertian, reorder: bool = False, sort_every: int = 1,
-             fused_shade: bool = False, interpret_shade: bool = False,
              return_seed: bool = True, seed_recon=None):
     """One path per ray: returns (incoming_light 3x(R,) tuple, new_seed).
 
@@ -143,26 +137,15 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
     so its state is the initial per-pixel seed advanced a STATIC number
     of draws — the LCG composes in closed form (rng.advance_n).  When
     given (and the final seed is not returned), the reorder sort drops
-    the seed column (~1.3 ms per 2M-ray sort) and recomputes it after
-    each sort instead (~10 int ops/ray).  Dead rays get garbage states —
+    the seed column and recomputes it after each sort instead (~10 int
+    ops/ray).  Dead rays get garbage states —
     harmless: every later draw they feed is was_hit/alive-masked.  Only
     callers whose pixel/frame assignment is an arithmetic function of the
     original index may pass this (renderer._tile_step's row-major bands).
 
     ``origin0``/``dir0`` may be (R, 3) arrays or 3-tuples of (R,) columns.
 
-    The reorder/restore sorts are EXACT global multi-operand sorts.  A
-    windowed variant (sort within fixed-size ray windows; bit-identical
-    since rays never cross windows) was measured frame-time NEUTRAL on TPU
-    and deleted in round 5 (experiments/sort_window.py records the
-    numbers); approximate lane-clustering sorts were measured far worse
-    (see below).
-
-    ``fused_shade`` routes each bounce's finalize/scatter/state-update
-    through the one-pass Pallas kernel (ops/shade.py) — the same formulas
-    in the same order (equal to FMA-contraction rounding,
-    tests/test_shade.py), ~15x cheaper on TPU.  Requires a traversal
-    backend that reports leaf slots (pallas2).
+    The reorder/restore sorts are EXACT global multi-operand sorts.
 
     The reference's per-pixel bounce loop (fragment.glsl:309-350) with the
     emissive-break and miss-break semantics expressed as an alive mask.
@@ -177,17 +160,6 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
     d3 = _as_soa(dir0)
     R = o3[0].shape[0]
 
-    # The exact global multi-operand sort is at its floor: a 2M x 12 f32
-    # bitonic network is ~12.5 ms of pure VPU issue slots and XLA's
-    # in-frame sort measures 13.7 ms.  Approximate row-clustering
-    # alternatives (per-lane sublane sorts, which cost ~half and are flat
-    # in operand count) were measured and CLOSED in round 4: quantile
-    # noise of ~0.4% of ray mass per packet balloons kernel time 570 ->
-    # 1634 ms/frame, and a lane+windowed-refinement hybrid still loses 8%
-    # (experiments/psort_axis.py, psort_frame_ab.py).  A windowed exact
-    # sort (bit-identical; rays never cross windows) measured frame-time
-    # NEUTRAL and was deleted in round 5 (experiments/sort_window.py).
-    _wsort = jax.lax.sort
     # x2 emission in lambertian mode (fragment.glsl:329-331); traced select
     # so the L toggle is a uniform flip, not a recompile.
     emission_scale = jnp.where(jnp.asarray(lambertian, bool),
@@ -198,10 +170,6 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
 
         scene_lo = scene.node_min[0]
         scene_hi = scene.node_max[0]
-    if fused_shade:
-        from opengl_raytracer_tpu.ops.shade import shade_update
-
-        sky3 = jnp.asarray(sky_color, jnp.float32)
 
     def body(state, static_i):
         origin, direction, ray_color, incoming, alive, seed, orig = state
@@ -214,14 +182,11 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
             # Primary rays (i == 0) arrive screen-coherent; sorting only
             # pays off on bounce rays.  The reorder is a multi-operand
             # lax.sort carrying every per-ray column THROUGH the sort
-            # network: measured ~5x cheaper on TPU than argsort followed
-            # by random-index gathers (XLA gathers are near-scalar; the
-            # bitonic network's data movement is dense vector work).
+            # instead of an argsort followed by gathers.
             keys = ray_sort_keys_soa(origin, direction, scene_lo, scene_hi,
                                      alive)
-            # 11 operands (12 without seed reconstruction), not 16: each
-            # bitonic payload column costs ~1.3 ms per 2M-ray sort
-            # (experiments/sort_cost.py), so columns are folded away
+            # 11 operands (12 without seed reconstruction), not 16: every
+            # payload column adds sort traffic, so columns are folded away
             # wherever an invariant allows.
             #  * ``incoming`` rides in the origin columns: light is only
             #    ever added at the DEATH event (an emissive hit or a
@@ -239,7 +204,7 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
                 # 11 operands: the seed column is recomputed from orig
                 # after the sort (see the docstring) instead of carried.
                 (keys_s, m0, m1, m2, d0, d1, d2, c0, c1, c2,
-                 orig) = _wsort(
+                 orig) = jax.lax.sort(
                     (keys,
                      merged[0], merged[1], merged[2],
                      direction[0], direction[1], direction[2],
@@ -249,7 +214,7 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
                 seed = seed_recon(orig, 3 * static_i)
             else:
                 (keys_s, m0, m1, m2, d0, d1, d2, c0, c1, c2,
-                 seed, orig) = _wsort(
+                 seed, orig) = jax.lax.sort(
                     (keys,
                      merged[0], merged[1], merged[2],
                      direction[0], direction[1], direction[2],
@@ -267,17 +232,7 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
             incoming = tuple(jnp.where(alive, zero, origin[a])
                              for a in range(3))
 
-        nearest = raycast_fn(origin, direction, alive,
-                             primary=(static_i == 0))
-
-        if fused_shade:
-            origin, direction, ray_color, incoming, alive, seed = (
-                shade_update(scene, nearest, origin, direction, ray_color,
-                             incoming, alive, seed, sky3, emission_scale,
-                             lambertian, interpret=interpret_shade))
-            return (origin, direction, ray_color, incoming, alive, seed,
-                    orig)
-
+        nearest = raycast_fn(origin, direction, alive)
         hit = finalize_hit_soa(scene, origin, direction, nearest)
 
         seed_h, new_dir = scatter_soa(seed, hit.normal, direction,
@@ -323,10 +278,8 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
         jnp.arange(R, dtype=jnp.int32),
     )
     # The bounce count is STATIC (a python int from the config), so the
-    # loop unrolls.  Measured equal to the lax.while_loop version at 1080p
-    # (813 vs 817 ms/frame -- XLA's loop carries were already cheap), but
-    # unrolling drops bounce 0's sort branch at trace time and keeps every
-    # bounce index static for the profiler.  The reference's early exit on
+    # loop unrolls: that drops bounce 0's sort branch at trace time and
+    # keeps every bounce index static for the profiler.  The reference's early exit on
     # all-paths-dead (fragment.glsl:313's loop bound with breaks) is
     # preserved semantically by the alive masks -- dead rays contribute
     # exactly their frozen incoming light.
@@ -339,15 +292,14 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
         # (``incoming`` is already complete here: the origin-column fold
         # is purely a sort-transport trick, unpacked immediately after
         # each sort.)  The seed column rides only when the caller needs
-        # it (rays_per_pixel > 1 chains the RNG across samples); each
-        # bitonic payload column costs ~1.3 ms at 2M rays, and XLA does
-        # not DCE dead sort operands.
+        # it (rays_per_pixel > 1 chains the RNG across samples): XLA does
+        # not remove dead sort operands.
         if return_seed:
-            _, i0, i1, i2, seed = _wsort(
+            _, i0, i1, i2, seed = jax.lax.sort(
                 (orig, incoming[0], incoming[1], incoming[2], seed),
             )
         else:
-            _, i0, i1, i2 = _wsort(
+            _, i0, i1, i2 = jax.lax.sort(
                 (orig, incoming[0], incoming[1], incoming[2]),
             )
             seed = None
@@ -357,9 +309,7 @@ def raytrace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
 
 def trace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
           rays_per_pixel: int, lambertian, reorder: bool = False,
-          sort_every: int = 1,
-          fused_shade: bool = False, interpret_shade: bool = False,
-          seed_recon=None):
+          sort_every: int = 1, seed_recon=None):
     """Average ``rays_per_pixel`` independent paths (fragment.glsl:352-366).
 
     Returns ((R, 3) color, new_seed); inputs may be AoS or SoA."""
@@ -374,8 +324,6 @@ def trace(scene, raycast_fn, origin0, dir0, seed0, sky_color, n_bounces: int,
         lambertian=lambertian,
         reorder=reorder,
         sort_every=sort_every,
-        fused_shade=fused_shade,
-        interpret_shade=interpret_shade,
         seed_recon=seed_recon,
     )
     if rays_per_pixel == 1:

@@ -15,8 +15,8 @@ Two triangle-test shapes are provided:
 * :func:`raycast_brute` — all rays against all triangles via an algebraic
   rearrangement into ``[R,3] @ [3,C]`` matmuls (using the triple-product
   identity ``e·((o-v0)×d) = e·(o×d) - d·(e×v0)``), so the brute-force sweep
-  runs dense on the MXU with **no** ``[R,C,3]`` intermediates.  This is the
-  correctness oracle and the fast path for small scenes.
+  runs as dense matrix products with **no** ``[R,C,3]`` intermediates.  This
+  is the correctness oracle and the fast path for small scenes.
 """
 
 from __future__ import annotations
@@ -91,21 +91,12 @@ def slab_test(origin, inv_dir, box_min, box_max):
 
 class Nearest(NamedTuple):
     """Carry for nearest-hit reduction: distance, triangle id (in permuted
-    order), and that triangle's barycentrics.
-
-    ``slot`` (sub-block backend only) is the winner's global LEAF-SLOT id:
-    an index into the scene's slot-order shading table (SceneData.sh_slot)
-    that lets finalize_hit gather materials WITHOUT resolving slot -> tri
-    first — the 1-element-wide remap gather measures 14.8 ms per 2M rays
-    on TPU (4x the cost of the whole 24-wide shading row gather), and
-    keeping ``tri`` lazy lets XLA dead-code it out of the render loop.
-    ``tri`` stays exact for every consumer that wants it."""
+    order), and that triangle's barycentrics."""
 
     t: jnp.ndarray  # (R,)
     tri: jnp.ndarray  # (R,) int32
     u: jnp.ndarray  # (R,)
     v: jnp.ndarray  # (R,)
-    slot: jnp.ndarray | None = None  # (R,) int32 global leaf slot
 
 
 def init_nearest(num_rays: int) -> Nearest:
@@ -132,6 +123,10 @@ def raycast_brute(scene, origin, direction, active=None,
 
     The scan over triangle chunks carries the running nearest hit, matching
     the shader's strict ``h.t < closestT`` update rule (fragment.glsl:275).
+    The winner's t and barycentrics are then recomputed per ray in the
+    shader's own operation order (:func:`mt_single`): the matmul form's
+    ``v0.face - o.face`` cancels catastrophically for short hits (a bounce
+    ray leaving a surface, t << |o|), where it keeps only ~2 digits of t.
     """
     R = origin.shape[0]
     T = scene.v0.shape[0]
@@ -149,8 +144,9 @@ def raycast_brute(scene, origin, direction, active=None,
 
     cross_od = jnp.cross(origin, direction)  # (R, 3)
 
-    # Full-f32 contractions: the default (bf16-class) matmul precision loses
-    # ~3 decimal digits, which corrupts barycentric accept/reject decisions.
+    # Full-f32 contractions: the default matmul precision (bf16 passes, or
+    # TF32 on a GPU) keeps ~3 decimal digits, which corrupts barycentric
+    # accept/reject decisions.
     def mm(a, b):
         return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
@@ -192,14 +188,23 @@ def raycast_brute(scene, origin, direction, active=None,
             body, init_nearest(R), (v0s, e1s, e2s, faces, base))
         return carry
 
+    def refine(near: Nearest) -> Nearest:
+        tri = near.tri
+        _, t, u, v = mt_single(origin, direction, scene.v0[tri],
+                               scene.e1[tri], scene.e2[tri], scene.face[tri])
+        hit = near.t < BIG
+        return Nearest(t=jnp.where(hit, t, near.t), tri=tri,
+                       u=jnp.where(hit, u, near.u),
+                       v=jnp.where(hit, v, near.v))
+
     if active is None:
-        carry = run_scan(None)
+        carry = refine(run_scan(None))
     else:
         # Dead-ray early-out: a chunk whose rays are ALL terminated skips
         # the entire triangle sweep (the brute path's analog of the
         # traversal kernels' best_t = -inf gating).  Mixed chunks still
         # sweep densely — rows of a matmul cannot be skipped.
-        carry = jax.lax.cond(jnp.any(active), run_scan,
+        carry = jax.lax.cond(jnp.any(active), lambda _: refine(run_scan(_)),
                              lambda _: init_nearest(R), None)
         carry = carry._replace(t=jnp.where(active, carry.t, BIG))
     return carry
@@ -208,12 +213,9 @@ def raycast_brute(scene, origin, direction, active=None,
 class HitSoA(NamedTuple):
     """SoA nearest-hit record: vec3 fields are 3-tuples of (R,) columns.
 
-    The AoS :class:`Hit` keeps (R, 3) arrays, which XLA lays out with the
-    3-wide minor dim on the 128-lane axis (3/128 lanes used) or spends
-    layout copies transposing; column tuples keep every consumer op dense
-    and fusible.  Measured on the 1080p frame, the AoS finalize/scatter
-    glue was ~70 ms/frame of separate 1.4-ms reduce-fusions over the
-    (2M, 24) gathered material rows — the SoA form collapses them."""
+    The AoS :class:`Hit` keeps (R, 3) arrays, whose 3-wide minor dimension
+    makes every elementwise consumer strided; column tuples keep every
+    consumer op dense and fusible."""
 
     did_hit: jnp.ndarray  # (R,) bool
     t: jnp.ndarray  # (R,)
@@ -234,21 +236,12 @@ def finalize_hit_soa(scene, o3, d3, nearest: Nearest) -> HitSoA:
 
     point = tuple(o3[a] + d3[a] * nearest.t for a in range(3))
 
-    # ONE 24-wide ROW gather instead of eight column gathers: XLA TPU
-    # gathers cost roughly the same per row as per element (~7 ms per 2M
-    # indices), so packing ALL the shading data into one row (Scene.send)
-    # cuts the per-bounce material fetch ~6x vs per-column fetches.
-    # When the traversal reports a leaf SLOT, gather from the slot-order
-    # copy of the table instead: skipping the slot->tri remap removes a
-    # 1-wide gather that costs 4x this whole row gather (see Nearest).
-    slot = nearest.slot
-    if slot is not None and scene.sh_slot.shape[0] > 0:
-        abc = scene.sh_slot[jnp.clip(slot, 0, scene.sh_slot.shape[0] - 1)]
-    else:
-        abc = scene.sh_abc[nearest.tri]
+    # ONE 24-wide row gather fetches all of the hit's shading data
+    # (Scene.send packs it) instead of eight column gathers.
+    abc = scene.sh_abc[nearest.tri]
     # One explicit transpose, then every material field is a dense (R,)
     # row slice — consumers fuse into few single-pass kernels instead of
-    # each re-reading the row-major (R, 24) array with a 24-lane minor.
+    # each re-reading the row-major (R, 24) array with a 24-wide minor.
     abc_t = abc.T
     col = lambda k: abc_t[k]
     n0 = (col(0), col(1), col(2))
@@ -290,7 +283,8 @@ def finalize_hit_soa(scene, o3, d3, nearest: Nearest) -> HitSoA:
 
 def finalize_hit(scene, origin, direction, nearest: Nearest) -> Hit:
     """AoS wrapper over :func:`finalize_hit_soa` (compatibility surface
-    for tests/experiments; the integrator uses the SoA form directly)."""
+    for tests and on-card checks; the integrator uses the SoA form
+    directly)."""
     h = finalize_hit_soa(
         scene,
         tuple(origin[..., a] for a in range(3)),

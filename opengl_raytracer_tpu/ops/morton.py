@@ -48,9 +48,9 @@ def ray_sort_keys_soa(o3, d3, lo, hi, alive=None) -> jnp.ndarray:
     """SoA form of :func:`ray_sort_keys`: ``o3``/``d3`` are 3-tuples of
     (R,) component columns and ``lo``/``hi`` are (3,) vectors.
 
-    Column-wise math keeps the whole key computation in dense (R,)-shaped
-    lanes — the (R, 3) AoS form makes XLA either lane-pad the minor dim
-    (3 of 128 lanes used) or insert layout copies around every op.
+    Column-wise math keeps the whole key computation on dense (R,)
+    arrays — the (R, 3) AoS form makes every op strided over a 3-wide
+    minor dimension or needs layout copies around it.
     """
     ext = [jnp.maximum(hi[a] - lo[a], np.float32(1e-6)) for a in range(3)]
     q = [
@@ -95,9 +95,8 @@ def ray_sort_keys(origin, direction, lo, hi, alive=None) -> jnp.ndarray:
     (top 12 Morton bits, 16^3 cells) above FINE direction (2 more bits of
     y/z plus 4 of z at 16 levels/axis) above fine position: packets from
     one scene region flying one way agree on both the entry subtree and
-    the frustum, and the measured 128-ray traversal unions are ~10%
-    cheaper in expands than dir6|morton24 (experiments/key_sweep.py:
-    E 55.9 vs 62.1, L 57.7 vs 58.8 per packet on bounce-2 rays).
+    the frustum, so 128-ray packets open fewer nodes than with a plain
+    direction|position key.
     """
     return ray_sort_keys_soa(
         tuple(origin[..., a] for a in range(3)),

@@ -8,7 +8,7 @@ The per-pixel seed is ``x*1973 ^ y*9277 ^ frameNumber*1664525`` followed by
 three warm-up draws (fragment.glsl:390-394).
 
 Everything here is vectorized uint32 math in JAX, so a whole frame of
-per-pixel states advances in one VPU op — the sequence per pixel is
+per-pixel states advances in one elementwise op — the sequence per pixel is
 *bit-identical* to the GLSL program, which is what makes converged images
 match the reference to float rounding rather than just in distribution.
 """

@@ -1,5 +1,5 @@
-"""Vectorized BVH traversal — the TPU rewrite of the reference's divergent
-per-fragment stack walk (reference: fragment.glsl:246-307).
+"""Vectorized BVH traversal — the data-parallel rewrite of the reference's
+divergent per-fragment stack walk (reference: fragment.glsl:246-307).
 
 Two strategies over the same DFS-preorder-with-miss-links node layout
 (ops/bvh.py):
@@ -11,16 +11,15 @@ divergent ray finishes — kept as the reference implementation and for small
 ray counts.
 
 :func:`raycast_packet` — **packet traversal**, the production path.  Rays
-are grouped into packets of 128 (a full VPU lane row; the renderer feeds
-8x16 pixel blocks, so packets are spatially coherent).  Each packet shares
-ONE node pointer: a node is visited when *any* live ray in the packet hits
-its AABB ahead of that ray's current nearest hit.  Consequences, all
-TPU-shaped:
+are grouped into packets of 128 (the renderer feeds 8x16 pixel blocks, so
+packets are spatially coherent).  Each packet shares ONE node pointer: a
+node is visited when *any* live ray in the packet hits its AABB ahead of
+that ray's current nearest hit.  Consequences:
 
 * control state is per-packet (P = R/128 elements), so the node gathers
   shrink by 128x and the while-loop divergence cost is paid per packet,
   not per ray;
-* the slab test runs dense ``[P, 128]`` on the VPU;
+* the slab test runs dense ``[P, 128]``;
 * traversal is two-phase: an inner loop advances node pointers (slab tests
   only) until every packet rests at a leaf or is done, then one dense leaf
   phase runs ``[P, 128]`` Möller–Trumbore tests against the packet's leaf

@@ -1,20 +1,20 @@
 """Multi-chip rendering: SPMD over a jax.sharding.Mesh.
 
 The reference is a single-process, single-GPU program (SURVEY.md section 2);
-its only parallelism is the implicit SIMT fan-out of fragments.  The TPU
-framework scales the same workload across chips with two mesh axes:
+its only parallelism is the implicit SIMT fan-out of fragments.  This
+framework scales the same workload across devices with two mesh axes:
 
 * ``dp`` (data/pixel parallel): the rays of the current tile band are
   sharded by band rows, and the accumulation buffer by image rows.  Scene
   arrays are small (a few MB) and replicated, so per-device rendering needs
-  no communication; only the band -> accumulation merge reshards (an ICI
+  no communication; only the band -> accumulation merge reshards (an
   all-to-all sized one tile band, inserted by GSPMD).
 * ``sp`` (sample/frame parallel): each device along ``sp`` renders a
   *different progressive frame number* (frame_count + sp_index) and the
-  results are averaged with a ``psum`` over ICI.  Because the reference's
+  results are averaged with a ``psum``.  Because the reference's
   per-pixel RNG stream is seeded by (x, y, frameNumber)
   (fragment.glsl:390), frame-parallelism preserves the exact per-frame
-  sample streams — S chips converge the accumulation S frames per step with
+  sample streams — S devices converge the accumulation S frames per step with
   bit-identical samples to S sequential steps.
 
 Tile scheduling (reference main.py:409-418) composes with both axes: one
@@ -38,6 +38,7 @@ from opengl_raytracer_tpu.renderer import (
     make_raycast_fn,
     render_flat,
     resolve_leaf_bound,
+    select_traversal,
 )
 from opengl_raytracer_tpu.utils.config import RenderConfig
 
@@ -151,7 +152,6 @@ class ShardedRenderer:
 
     def __init__(self, scene, config: RenderConfig, mesh: Mesh):
         from opengl_raytracer_tpu.models.scene import Scene
-        from opengl_raytracer_tpu.renderer import _BRUTE_MAX_TRIS
 
         scene_data = scene.send() if isinstance(scene, Scene) else scene
         config = resolve_leaf_bound(scene_data, config)
@@ -170,31 +170,17 @@ class ShardedRenderer:
                 f"dp={dp} must divide the tile band height {config.tile_h} "
                 f"(tile_size={config.tile_size})"
             )
-        traversal = config.traversal
-        if traversal == "auto":
-            from opengl_raytracer_tpu.ops.subblock_traversal import _on_tpu
-
-            if scene_data.num_tris <= _BRUTE_MAX_TRIS:
-                traversal = "brute"
-            elif _on_tpu() and scene_data.p2_node_rows.shape[0] > 0:
-                # same choice as the single-chip Renderer: the sub-block
-                # kernel composes with shard_map (each device traverses
-                # its own ray shard against the replicated tables)
-                traversal = "pallas2"
-            else:
-                traversal = "packet"
         # Per-device ray shards need not be a multiple of 128: render_flat
-        # pads each device's chunk to whole packets and discards the pad
-        # (renderer.py), so the packet-shaped traversals run for ANY shard
-        # size — no silent per-ray-walk downgrade (round-2 VERDICT item 4).
-        self.traversal = traversal
+        # pads each device's chunk to whole packets and discards the pad.
+        self.traversal = select_traversal(scene_data, config)
         self.frames_per_step = mesh.shape["sp"]
 
         repl = NamedSharding(mesh, P())
         self.scene = jax.device_put(scene_data, repl)
         self._accum_sharding = NamedSharding(mesh, P("dp"))
         self._step = jax.jit(
-            partial(sharded_tile_step, config=config, traversal=traversal,
+            partial(sharded_tile_step, config=config,
+                    traversal=self.traversal,
                     mesh=mesh),
             donate_argnums=(2,),
         )
@@ -208,7 +194,7 @@ class ShardedRenderer:
 
     def restore_state(self, state: RenderState) -> RenderState:
         """Re-shard a (host/checkpoint-loaded) state's accumulation onto the
-        mesh so stepping resumes with ICI-resident buffers."""
+        mesh so stepping resumes with device-resident buffers."""
         return RenderState(
             accum=jax.device_put(state.accum, self._accum_sharding),
             frame_count=state.frame_count,

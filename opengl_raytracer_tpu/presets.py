@@ -3,16 +3,19 @@
 ``default_scene`` rebuilds the reference's hard-coded Cornell-box variant
 (reference: main.py:19-111) object-for-object: dragon mesh, mirror sphere,
 red/blue/green walls, mirror front wall, floor, back wall, and the white
-area light.  The dragon asset defaults to ``stanford_minidragon`` because
-the reference's ``stanford_mediumdragon`` OBJ is stripped from the mount
-(.MISSING_LARGE_BLOBS:4); pass ``dragon="stanford_mediumdragon"`` or any
-OBJ path when the asset is available.
+area light.  Both meshes are generated in code by default
+(models/procedural.py): a seeded 23,490-triangle blob stands in for the
+dragon and the sphere is the reference's 64x32 UV sphere, so the scene
+needs no asset file.  Pass ``dragon="stanford_mediumdragon"`` or any OBJ
+name or path to load a dragon through ``resolve_obj_path`` instead; a
+missing asset raises.
 
 ``baseline_configs`` mirrors BASELINE.json's five benchmark configs.
 """
 
 from __future__ import annotations
 
+from opengl_raytracer_tpu.models import procedural
 from opengl_raytracer_tpu.models.mesh import Mesh
 from opengl_raytracer_tpu.models.rect import Rect
 from opengl_raytracer_tpu.models.scene import Scene
@@ -22,13 +25,27 @@ DEFAULT_CAM_POS = (-33.7, 14.8, -21.1)  # main.py:151
 DEFAULT_CAM_DIR = (65.0, -25.4)  # main.py:152
 
 
-def default_objects(dragon: str = "stanford_minidragon") -> list:
-    """The reference's default scene objects (main.py:19-99)."""
+# Top of the floor slab (the third Rect below: 1 unit thick at y = -25).
+_FLOOR_Y = -24.5
+# Per-axis size of the dragon's stand-in: about a third of the 60-unit box
+# wide, on the floor under the dragon's own position (main.py:20-27).
+_BLOB_SCALE = (9.0, 13.0, 10.0)
+
+
+def default_objects(dragon: str | None = None) -> list:
+    """The reference's default scene objects (main.py:19-99).  ``dragon``
+    None uses the generated stand-in; a name or path loads that OBJ."""
+    if dragon is None:
+        dragon_obj = procedural.blob(
+            [-5, _FLOOR_Y + _BLOB_SCALE[1], 0], [0, 0, 0], [0.96, 0.96, 0.86],
+            roughness=1, scale=_BLOB_SCALE)
+    else:
+        dragon_obj = Mesh([-5, -10, 0], [270, 0, -90], dragon,
+                          [0.96, 0.96, 0.86], roughness=1, scale=0.25)
     return [
-        Mesh([-5, -10, 0], [270, 0, -90], dragon, [0.96, 0.96, 0.86],
-             roughness=1, scale=0.25),
-        Mesh([-25, -20, 20], [0, 0, 0], "sphere", color=[1, 1, 1],
-             roughness=0, scale=7),
+        dragon_obj,
+        procedural.uv_sphere([-25, -20, 20], [0, 0, 0], color=[1, 1, 1],
+                             roughness=0, scale=7),
         Rect([8, 5, 0.1], [0, 0, 30], [0, 0, 0], [1, 0.25, 0.3],
              roughness=1, scale=10),
         Rect([8, 5, 0.1], [0, 0, -30], [0, 0, 0], [0.3, 0.25, 1],
@@ -46,7 +63,7 @@ def default_objects(dragon: str = "stanford_minidragon") -> list:
     ]
 
 
-def default_scene(dragon: str = "stanford_minidragon", max_leaf_tris: int = 32,
+def default_scene(dragon: str | None = None, max_leaf_tris: int = 32,
                   **scene_kw) -> Scene:
     """The reference's default scene, in its Scene order (main.py:101-111)."""
     return Scene(default_objects(dragon), max_leaf_tris=max_leaf_tris, **scene_kw)
@@ -105,14 +122,16 @@ def baseline_configs() -> dict[str, dict]:
             config=RenderConfig(width=1024, height=1024, bounces=3),
             cam_pos=(0.0, 2.0, 0.0), cam_dir=(0.0, -5.0),
         ),
+        # Config 4 runs on the generated default scene (27,542 triangles,
+        # the minidragon scene's count).
         "minidragon_1080p": dict(
-            objects=lambda: default_objects("stanford_minidragon"),
+            objects=lambda: default_objects(),
             config=default_config(bounces=4),
             cam_pos=DEFAULT_CAM_POS, cam_dir=DEFAULT_CAM_DIR,
         ),
         "mediumdragon_1080p": dict(
             objects=lambda: default_objects("stanford_mediumdragon"),
-            fallback_objects=lambda: default_objects("stanford_minidragon"),
+            fallback_objects=lambda: default_objects(),
             config=default_config(bounces=4, rays_per_pixel=4),
             cam_pos=DEFAULT_CAM_POS, cam_dir=DEFAULT_CAM_DIR,
         ),

@@ -46,7 +46,9 @@ from opengl_raytracer_tpu.ops.traversal import PACKET, raycast_bvh, raycast_pack
 from opengl_raytracer_tpu.utils.config import RenderConfig, SKY_COLOR
 
 _BRUTE_MAX_TRIS = 128  # "auto" switches to BVH packet traversal above this
+_MAX_LEAF_UNROLL = 1024  # largest BVH leaf the traversal loops may unroll
 
+_DEFAULT_CHUNK = 128 * 1024  # rays per render_flat chunk (config.ray_chunk=0)
 _BLOCK_H, _BLOCK_W = 8, 16  # coherent 128-ray packet tile (8 rows x 16 cols)
 
 
@@ -56,11 +58,10 @@ def effective_max_leaf(scene, config: RenderConfig) -> int:
     Derived from the scene's OWN node table — never from
     ``config.max_leaf_tris`` (which is only the *build* parameter).  A
     config bound smaller than the scene's largest leaf would silently skip
-    triangles; a larger one would make the Pallas kernel's fixed octet loop
-    read past the slack Scene.send sized into its tables (an unchecked
-    dynamic VMEM index).  Must be called on CONCRETE scene data (at
-    renderer construction), never under jit — the result is baked into the
-    compiled leaf loops as a static.
+    triangles; a larger one would only add masked leaf iterations.  Must
+    be called on CONCRETE scene data (at renderer construction), never
+    under jit — the result is baked into the compiled leaf loops as a
+    static.
     """
     del config
     return int(np.asarray(scene.node_count).max()) if scene.node_count.size else 1
@@ -76,18 +77,33 @@ def resolve_leaf_bound(scene, config: RenderConfig) -> RenderConfig:
     return config
 
 
-def make_raycast_fn(scene, config: RenderConfig, traversal: str):
-    """Bind a raycast(o3, d3, active, primary=False) -> Nearest for the
-    chosen traversal strategy; the integrator passes ray components as
-    SoA 3-tuples of (R,) columns (ops/integrator.py docstring).
-    ``config.max_leaf_tris`` must already cover the scene's largest leaf
-    (see resolve_leaf_bound).
+def select_traversal(scene, config: RenderConfig) -> str:
+    """The traversal a renderer runs for this scene and config.
 
-    ``primary`` is a static hint from the integrator (bounce index 0):
-    the sub-block kernel serves more rows per iteration on primary
-    segments, whose short coherent packets are claim-rate-bound, and
-    fewer on bounce segments, where extra serve slots are pure overhead
-    (~0.4 us/iteration each, experiments/phase_cost.py at 64 rows).
+    ``"auto"`` picks brute force for scenes of at most 128 triangles and
+    the packet BVH traversal above that, or brute force again when the
+    scene's BVH has a leaf over 1024 triangles (``Scene(build_bvh=False)``
+    makes one pseudo-leaf of the whole scene, and the leaf loop would
+    unroll that many times).  An explicit BVH traversal on such a scene
+    raises instead.  Must be called on CONCRETE scene data."""
+    traversal = config.traversal
+    if traversal == "auto":
+        traversal = "brute" if scene.num_tris <= _BRUTE_MAX_TRIS else "packet"
+    if (traversal != "brute"
+            and effective_max_leaf(scene, config) > _MAX_LEAF_UNROLL):
+        if config.traversal != "auto":
+            raise ValueError(
+                f"scene has BVH leaves over {_MAX_LEAF_UNROLL} triangles "
+                f"(was it built with build_bvh=False?); use traversal='brute'")
+        traversal = "brute"
+    return traversal
+
+
+def make_raycast_fn(scene, config: RenderConfig, traversal: str):
+    """Bind a raycast(o3, d3, active) -> Nearest for the chosen traversal
+    strategy; the integrator passes ray components as SoA 3-tuples of
+    (R,) columns (ops/integrator.py docstring).  ``config.max_leaf_tris``
+    must already cover the scene's largest leaf (see resolve_leaf_bound).
     """
     if traversal == "brute":
         base = partial(raycast_brute, scene)
@@ -96,29 +112,10 @@ def make_raycast_fn(scene, config: RenderConfig, traversal: str):
     elif traversal == "packet":
         base = partial(raycast_packet, scene,
                        max_leaf_tris=config.max_leaf_tris)
-    elif traversal == "pallas":
-        from opengl_raytracer_tpu.ops.pallas_traversal import raycast_pallas
-
-        base = partial(raycast_pallas, scene,
-                       max_leaf_tris=config.max_leaf_tris)
-    elif traversal == "pallas2":
-        from opengl_raytracer_tpu.ops.subblock_traversal import (
-            SERVE_BOUNCE, SERVE_PRIMARY, raycast_subblock)
-
-        # The renderer's step is always jitted, so the whole-batch pool is
-        # safe (eager callers of raycast_subblock keep the guarded POOL_BIG
-        # tier — see POOL_MAX).  Column tuples pass straight through.
-        def fn(origin, direction, active=None, primary=False):
-            return raycast_subblock(
-                scene, origin, direction, active, big_pools=True,
-                serve=SERVE_PRIMARY if primary else SERVE_BOUNCE)
-
-        return fn
     else:
         raise ValueError(f"unknown traversal {traversal!r}")
 
-    def fn(origin, direction, active=None, primary=False):
-        del primary  # only the sub-block kernel specializes on it
+    def fn(origin, direction, active=None):
         if isinstance(origin, (tuple, list)):
             origin = jnp.stack(origin, axis=-1)
         if isinstance(direction, (tuple, list)):
@@ -143,9 +140,7 @@ class RenderState:
 
 def render_pixels(scene: SceneData, config: RenderConfig, camera: Camera,
                   frame_number, sky_brightness, jitter_amount, lambertian,
-                  px, py, raycast_fn, reorder: bool = False,
-                  fused_shade: bool = False, interpret_shade: bool = False,
-                  recon=None):
+                  px, py, raycast_fn, reorder: bool = False, recon=None):
     """Trace a flat batch of pixels; px/py int32 (R,), py in GL convention
     (0 = bottom row).  Returns (R, 3) linear color.
 
@@ -182,9 +177,8 @@ def render_pixels(scene: SceneData, config: RenderConfig, camera: Camera,
     d = ray_dirs_soa(camera, u, v, config.width, config.height,
                      aspect=config.ray_aspect)
 
-    # Anti-alias jitter (fragment.glsl:398-400).  SoA columns throughout:
-    # (R, 3) arrays put the 3-wide minor dim on the 128-lane axis (see
-    # ops/integrator.py docstring).
+    # Anti-alias jitter (fragment.glsl:398-400).  SoA columns throughout
+    # (see the ops/integrator.py docstring).
     seed, r1 = rng.random_value(seed)
     seed, r2 = rng.random_value(seed)
     d = tuple(
@@ -210,8 +204,6 @@ def render_pixels(scene: SceneData, config: RenderConfig, camera: Camera,
         lambertian=lambertian,
         reorder=reorder,
         sort_every=config.sort_every,
-        fused_shade=fused_shade,
-        interpret_shade=interpret_shade,
         seed_recon=seed_recon,
     )
     return color
@@ -227,21 +219,12 @@ def render_flat(scene: SceneData, config: RenderConfig, camera: Camera,
     caller's ray-index offset (0 single-chip; the shard offset under dp
     sharding) and the per-chunk base is added here.
 
-    The Pallas paths keep all per-ray state in-kernel, so whole-frame
-    chunks amortize fixed costs and let the coherence sort work globally;
-    the XLA paths carry state in HBM and need bounded chunks.
+    Every path carries per-ray state in device memory, so chunks of
+    ``config.ray_chunk`` rays (default 128K) bound peak memory.
     """
     R = px.shape[0]
-    # pallas2's whole-batch pool is single-buffered only at grid=1, i.e.
-    # for batches up to POOL_MAX packets (2M rays) — chunk there so a
-    # 1080p frame is one grid step and frame batches pay one extra
-    # dispatch per 2M rays instead of double-buffered windows.
-    default_chunk = (2 * 1024 * 1024 if traversal == "pallas2"
-                     else 4 * 1024 * 1024 if traversal == "pallas"
-                     else 128 * 1024)
-    chunk = config.ray_chunk or min(R, default_chunk)
-    chunk = min(chunk, R)
-    if traversal in ("packet", "pallas", "pallas2"):
+    chunk = min(config.ray_chunk or _DEFAULT_CHUNK, R)
+    if traversal == "packet":
         chunk = -(-chunk // PACKET) * PACKET  # round up to whole packets
     n_chunks = -(-R // chunk)
     pad = n_chunks * chunk - R
@@ -256,15 +239,6 @@ def render_flat(scene: SceneData, config: RenderConfig, camera: Camera,
             frame_count = jnp.concatenate(
                 [frame_count, jnp.zeros((pad,), frame_count.dtype)])
 
-    if traversal == "pallas2":
-        # The fused shade/scatter/update kernel needs leaf slots, which
-        # only the sub-block backend reports.
-        from opengl_raytracer_tpu.ops.pallas_traversal import _on_tpu
-
-        fused_shade, interpret_shade = True, not _on_tpu()
-    else:
-        fused_shade, interpret_shade = False, False
-
     def body(px_c, py_c, frame_c, base=None):
         rec = None
         if recon is not None:
@@ -273,9 +247,7 @@ def render_flat(scene: SceneData, config: RenderConfig, camera: Camera,
         return render_pixels(
             scene, config, camera, frame_c, sky_brightness, jitter_amount,
             lambertian, px_c, py_c, raycast_fn=raycast_fn,
-            reorder=traversal in ("packet", "pallas", "pallas2"),
-            fused_shade=fused_shade, interpret_shade=interpret_shade,
-            recon=rec,
+            reorder=traversal == "packet", recon=rec,
         )
 
     bases = jnp.arange(n_chunks, dtype=jnp.int32) * jnp.int32(chunk)
@@ -412,60 +384,10 @@ class Renderer:
                 f"({config.width}x{config.height})"
             )
 
-        traversal = config.traversal
-        if traversal == "auto":
-            from opengl_raytracer_tpu.ops.pallas_traversal import _on_tpu
-
-            if scene_data.num_tris <= _BRUTE_MAX_TRIS:
-                traversal = "brute"
-            elif not _on_tpu():
-                # interpret-mode Pallas is far too slow for rendering
-                traversal = "packet"
-            else:
-                # Pallas kernels keep the whole scene in VMEM (~16 MB
-                # scoped budget); very large scenes fall back to the XLA
-                # packet path rather than failing to compile.  The
-                # work-stealing sub-block kernel (pallas2) is the fast
-                # path; its tables are empty when the scene exceeded its
-                # caps (ops/wide2.py), in which case the round-1 kernel
-                # or the packet path take over.
-                scene_bytes = (
-                    scene_data.pl_tri_tiles.nbytes + scene_data.pw_tiles.nbytes
-                )
-                if scene_data.p2_node_rows.shape[0] > 0:
-                    # the work-stealing sub-block kernel wins since the
-                    # round-2 dual-octet pops + tree-combined pushes
-                    # (1.2-1.33x over the 1024-ray kernel on 2M-ray
-                    # raycasts, experiments/subblock_hw.py).  Build-time
-                    # partitioning (ops/wide2.build_subblock_parts) keeps
-                    # each part's tables under the VMEM budget, so there
-                    # is no large-scene cliff on this path.
-                    traversal = "pallas2"
-                elif scene_bytes <= 13 * 1024 * 1024:
-                    traversal = "pallas"
-                else:
-                    import warnings
-
-                    warnings.warn(
-                        f"scene tables ({scene_bytes / 1e6:.1f} MB) exceed the "
-                        f"VMEM budget; using the slower XLA packet traversal"
-                    )
-                    traversal = "packet"
-        if traversal != "brute" and effective_max_leaf(scene_data, config) > 1024:
-            # e.g. Scene(build_bvh=False): a single giant pseudo-leaf would
-            # unroll the leaf loop thousands of times; brute force is the
-            # correct strategy for an unpartitioned scene.
-            if config.traversal == "auto":
-                traversal = "brute"
-            else:
-                raise ValueError(
-                    "scene has BVH leaves over 1024 triangles (was it built "
-                    "with build_bvh=False?); use traversal='brute'"
-                )
-        self.traversal = traversal
+        self.traversal = select_traversal(scene_data, config)
 
         self._step = jax.jit(
-            partial(_tile_step, config=config, traversal=traversal),
+            partial(_tile_step, config=config, traversal=self.traversal),
             donate_argnums=(2,),
         )
 

@@ -14,6 +14,9 @@ from __future__ import annotations
 import dataclasses
 
 
+TRAVERSALS = ("auto", "brute", "bvh", "packet")
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static knobs of a render.
@@ -40,11 +43,9 @@ class RenderConfig:
     max_leaf_tris: BVH leaf size passed to the builder.  The traversal
         leaf-loop bound is always derived from the scene's actual BVH
         (renderer.resolve_leaf_bound), not from this value.
-    traversal: "auto" | "brute" | "bvh" | "packet" | "pallas" | "pallas2".
-        "auto" picks brute force for tiny scenes, a Pallas wide-BVH kernel
-        on TPU when the scene tables fit VMEM ("pallas" = 1024-ray blocks,
-        "pallas2" = work-stealing 128-ray sub-blocks), and the XLA packet
-        traversal otherwise.
+    traversal: "auto" | "brute" | "bvh" | "packet".  "auto" picks brute
+        force for tiny scenes and the packet BVH traversal otherwise
+        (renderer.select_traversal); "bvh" is the per-ray reference walk.
     ray_chunk: rays processed per inner chunk (bounds peak memory; rounded
         to the pixel-row granularity internally). 0 = whole frame at once.
     aspect: display aspect ratio for ray generation (reference main.py:137
@@ -77,6 +78,11 @@ class RenderConfig:
     aspect: float = 0.0
     sort_every: int = 1
     frames_per_step: int = 1
+
+    def __post_init__(self):
+        if self.traversal not in TRAVERSALS:
+            raise ValueError(f"unknown traversal {self.traversal!r}; "
+                             f"expected one of {TRAVERSALS}")
 
     @property
     def ray_aspect(self) -> float:

@@ -31,7 +31,7 @@ def test_headless_app_renders_and_saves(tmp_path):
 def test_headless_remainder_tiles_full_sweeps(tmp_path):
     """The headless loop must run num_tiles_x * num_tiles_y steps per frame
     (NOT tile_size**2): at tileSize=3 on 16px, tile_w = 5 so a sweep is 4x4
-    bands (round-2 VERDICT item 2).  Frame counts and the image must match
+    bands.  Frame counts and the image must match
     the untiled render exactly."""
     tiled = App(window_size=(16, 16), bounces=1, tileSize=3,
                 scene=tiny_scene(), headless=True, max_frames=2,
@@ -83,31 +83,27 @@ def test_cli_parser_defaults():
 
     args = build_parser().parse_args([])
     assert args.width == 960 and args.bounces == 7 and not args.interactive
+    assert args.dragon is None  # the generated default scene
     args = build_parser().parse_args(["--obj", "x.obj", "--traversal", "packet"])
     assert args.obj == "x.obj" and args.traversal == "packet"
 
 
 def test_mediumdragon_eval_time_injection(tmp_path, monkeypatch):
-    """Rehearse BASELINE.md's eval-time asset supply end to end: the
-    reference's ``stanford_mediumdragon`` OBJ is stripped from the mount
-    (.MISSING_LARGE_BLOBS:4), so the judge supplies it under
-    OGLRT_MODELS_PATH.  Stage a renamed stand-in OBJ in a tmp root and
-    render the FULL default scene through ``App(dragon=
-    "stanford_mediumdragon")`` — every other asset (sphere) must still
-    resolve via the later path entries."""
-    import os
-    import shutil
+    """A user supplies the reference's ``stanford_mediumdragon`` OBJ under
+    OGLRT_MODELS_PATH: stage an OBJ written from a coarse generated mesh in
+    a tmp root under that name and render the FULL default scene through
+    ``App(dragon="stanford_mediumdragon")``; the sphere stays generated."""
+    from assets import write_obj
+
+    from opengl_raytracer_tpu.models import procedural
+    from opengl_raytracer_tpu.models.mesh import resolve_obj_path
 
     staged = tmp_path / "stanford_mediumdragon"
     staged.mkdir()
-    shutil.copy("/root/reference/models/knight/low-poly-chess-knight.obj",
-                staged / "Dragon_medium.obj")
-    monkeypatch.setenv(
-        "OGLRT_MODELS_PATH",
-        os.pathsep.join([str(tmp_path), "/root/reference/models"]),
-    )
-
-    from opengl_raytracer_tpu.models.mesh import resolve_obj_path
+    write_obj(staged / "Dragon_medium.obj",
+              procedural.blob([0, 0, 0], [0, 0, 0], scale=40, segments=12,
+                              rings=8))
+    monkeypatch.setenv("OGLRT_MODELS_PATH", str(tmp_path))
 
     assert resolve_obj_path("stanford_mediumdragon") == str(
         staged / "Dragon_medium.obj")
@@ -116,7 +112,7 @@ def test_mediumdragon_eval_time_injection(tmp_path, monkeypatch):
     app = App(window_size=(32, 24), bounces=2,
               dragon="stanford_mediumdragon", headless=True, max_frames=1,
               output=out)
-    # knight (296 tris) + sphere (3,968) + 7 rects (84) = the full scene
-    assert app.scene.total_triangles == 296 + 3968 + 84
+    # staged dragon (2 * 12 * 7 tris) + sphere (3,968) + 7 rects (84)
+    assert app.scene.total_triangles == 168 + 3968 + 84
     img = load_png(out)
     assert img.shape == (24, 32, 3) and np.isfinite(img).all()

@@ -3,14 +3,10 @@ every triangle in exactly one leaf, AABB containment, leaf-size bounds,
 forward-only miss links — on random soups, degenerate inputs, and a real
 mesh."""
 
-import os
-
 import numpy as np
 import pytest
 
 from opengl_raytracer_tpu.ops.bvh import build_bvh, validate_bvh
-
-REF_MODELS = "/root/reference/models"
 
 
 def random_tris(n, seed=0, spread=10.0):
@@ -47,11 +43,10 @@ def test_root_covers_everything():
     np.testing.assert_allclose(bvh.node_max[0], hi, atol=1e-5)
 
 
-@pytest.mark.skipif(not os.path.isdir(REF_MODELS), reason="reference assets absent")
 def test_sphere_mesh():
-    from opengl_raytracer_tpu.models.mesh import Mesh
+    from opengl_raytracer_tpu.models.procedural import uv_sphere
 
-    m = Mesh([0, 0, 0], [0, 0, 0], "sphere", scale=2.0)
+    m = uv_sphere([0, 0, 0], [0, 0, 0], scale=2.0)
     v = m.pos.reshape(-1, 3, 3)
     bvh = build_bvh(v[:, 0], v[:, 1], v[:, 2], max_leaf_tris=4)
     validate_bvh(bvh, v[:, 0], v[:, 1], v[:, 2], 4)

@@ -1,16 +1,13 @@
 """OBJ parser unit tests: every face-index form the reference resolves
 (loadObject.pyx:69-111), fan triangulation (loadObject.pyx:53-67), the V
-flip, and a real asset parse."""
+flip, and a parse of the generated sphere written as an OBJ."""
 
-import os
 import textwrap
 
 import numpy as np
 import pytest
 
 from opengl_raytracer_tpu.models.obj import load_obj_py
-
-REF_MODELS = "/root/reference/models"
 
 
 def write_obj(tmp_path, text):
@@ -184,19 +181,30 @@ def test_out_of_range_index_fails_both(tmp_path):
             loader.load_obj_native(path)
 
 
-@pytest.mark.skipif(not os.path.isdir(REF_MODELS), reason="reference assets absent")
-def test_sphere_asset():
-    out = load_obj_py(os.path.join(REF_MODELS, "sphere", "sphere.obj"))
-    # 1,984 quads fan-triangulated -> 3,968 triangles (SURVEY.md C16)
+def sphere_obj(tmp_path):
+    """The generated UV sphere (the reference sphere's 3,968 triangles,
+    SURVEY.md C16) written as an OBJ."""
+    from assets import write_obj
+
+    from opengl_raytracer_tpu.models.procedural import uv_sphere
+
+    sphere = uv_sphere([0, 0, 0], [0, 0, 0])
+    return write_obj(tmp_path / "sphere.obj", sphere), sphere
+
+
+def test_sphere_asset(tmp_path):
+    path, sphere = sphere_obj(tmp_path)
+    out = load_obj_py(path)
     assert out.shape == (3968 * 3, 8)
     assert np.isfinite(out).all()
+    np.testing.assert_array_equal(out[:, 0:3], sphere.pos)
+    np.testing.assert_array_equal(out[:, 3:6], sphere.normals)
 
 
-@pytest.mark.skipif(not os.path.isdir(REF_MODELS), reason="reference assets absent")
-def test_native_matches_python():
+def test_native_matches_python(tmp_path):
     from opengl_raytracer_tpu.native import loader
 
     if loader.get_lib() is None:
         pytest.skip("native parser not built")
-    path = os.path.join(REF_MODELS, "sphere", "sphere.obj")
+    path, _ = sphere_obj(tmp_path)
     np.testing.assert_array_equal(loader.load_obj_native(path), load_obj_py(path))

@@ -1,8 +1,6 @@
 """Preset scenes and baseline configs: construction, fallbacks, and the
 default scene's object-level parity with the reference (main.py:19-111)."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -14,11 +12,7 @@ from opengl_raytracer_tpu.presets import (
     default_objects,
 )
 
-HAVE_ASSETS = os.path.isdir("/root/reference/models")
-needs_assets = pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
 
-
-@needs_assets
 def test_default_scene_composition():
     objs = default_objects()
     # 2 Meshes + 7 Rects, reference order (main.py:101-111 runs 9 objects)
@@ -45,16 +39,24 @@ def test_default_config_matches_reference_main():
     assert cfg.tile_size == 1
 
 
-@needs_assets
 def test_baseline_configs_construct():
+    """Configs 4 and 5 build from the generated default scene with no
+    asset on disk; configs 1-3 need their OBJs and say so when missing."""
+    built = set()
     for name, cfg in baseline_configs().items():
-        try:
-            objs = cfg["objects"]()
-        except FileNotFoundError:
-            assert "fallback_objects" in cfg, f"{name}: no fallback for missing asset"
-            objs = cfg["fallback_objects"]()
-        assert len(objs) >= 1
         assert cfg["config"].width > 0
+        for key in ("objects", "fallback_objects"):
+            if key not in cfg:
+                continue
+            try:
+                objs = cfg[key]()
+            except FileNotFoundError as e:
+                assert "OGLRT_MODELS_PATH" in str(e)
+                continue
+            assert len(objs) >= 1
+            built.add(name)
+            break
+    assert {"minidragon_1080p", "mediumdragon_1080p"} <= built
 
 
 def test_negative_emission_rejected():

@@ -107,19 +107,6 @@ def test_packet_matches_brute_image():
     assert rmse(img_b, img_p) < 1e-5
 
 
-@pytest.mark.slow
-def test_pallas2_fused_shade_matches_packet_image():
-    """Whole-renderer guard for the SoA + fused-shade pipeline: the
-    production pallas2 step (sub-block kernel + ops/shade.py, interpret
-    mode here) must match the packet path's image, which uses the plain
-    JAX finalize/scatter/update."""
-    img_p, _, _ = run_jax(cornellish_objects(), w=32, h=16, bounces=2,
-                          traversal="packet")
-    img_2, _, _ = run_jax(cornellish_objects(), w=32, h=16, bounces=2,
-                          traversal="pallas2")
-    assert rmse(img_p, img_2) < 1e-5
-
-
 def test_packet_block_ordering_matches():
     # Resolution divisible by the 8x16 packet block -> block reorder path
     img_b, _, _ = run_jax(cornellish_objects(), w=32, h=16, bounces=2,
