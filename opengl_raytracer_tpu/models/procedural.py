@@ -23,6 +23,8 @@ import numpy as np
 from opengl_raytracer_tpu.models.transforms import bake_world
 from opengl_raytracer_tpu.models.trisoup import Triangles
 
+_RELIEF = 0.45  # blob radius varies by up to this fraction of 1
+
 
 def latlong_faces(segments: int, rings: int) -> np.ndarray:
     """(2 * segments * (rings - 1), 3) int vertex indices of a closed
@@ -88,9 +90,8 @@ def uv_sphere(pos, eulers, color=(0, 0, 0), emission_color=(0, 0, 0),
                       emission=emission, roughness=roughness))
 
 
-def blob_vertices(seed: int, segments: int, rings: int,
-                  relief: float) -> np.ndarray:
-    """Vertices of a sphere whose radius is ``1 + relief * noise(dir)``.
+def blob_vertices(seed: int, segments: int, rings: int) -> np.ndarray:
+    """Vertices of a sphere whose radius is ``1 + _RELIEF * noise(dir)``.
 
     The noise is a seeded sum of twelve plane waves over the unit direction
     with frequencies 1.5-6 and amplitudes falling as 1/frequency, scaled so
@@ -105,19 +106,18 @@ def blob_vertices(seed: int, segments: int, rings: int,
     dirs = latlong_dirs(segments, rings)
     noise = (np.sin(dirs @ (axes * freq[:, None]).T + phase) / freq).sum(axis=1)
     noise /= np.abs(noise).max()
-    verts = dirs * (1.0 + relief * noise)[:, None]
+    verts = dirs * (1.0 + _RELIEF * noise)[:, None]
     verts[:, 1] -= verts[:, 1].min() + 1.0
     return verts
 
 
 def blob(pos, eulers, color=(0, 0, 0), emission_color=(0, 0, 0),
          emission=0.0, roughness=0.0, scale=1.0, seed: int = 0,
-         segments: int = 135, rings: int = 88,
-         relief: float = 0.45) -> Triangles:
+         segments: int = 135, rings: int = 88) -> Triangles:
     """Closed, non-convex noise-displaced sphere (the dragon's stand-in);
     ``Mesh`` arguments plus the seed and tessellation.  ``scale`` may be a
     scalar or per-axis."""
-    verts = blob_vertices(seed, segments, rings, relief)
+    verts = blob_vertices(seed, segments, rings)
     faces = latlong_faces(segments, rings)
     return _soup(verts, vertex_normals(verts, faces), faces, pos, eulers,
                  scale, dict(color=color, emission_color=emission_color,

@@ -1,5 +1,5 @@
 // Native BVH builder — the C++ equivalent of the reference's compiled Cython
-// builder (reference: boundingBoxes.pyx:9-132), emitting the TPU-first
+// builder (reference: boundingBoxes.pyx:9-132), emitting the
 // flattened layout described in ops/bvh.py: DFS preorder with miss links,
 // in-place triangle permutation so leaves are contiguous ranges.
 //
@@ -11,12 +11,9 @@
 //              the reference keeps scene.py:274-421 beside the Cython).
 //   method 1 — binned SAH (16 bins, ALL THREE axes, binned by triangle-box
 //              centers): picks the (axis, bin) split minimizing
-//              surface-area * count.  The earlier largest-centroid-axis-only
-//              sweep cost ~13% more packet iterations in a traversal
-//              simulator (47.9 vs 55.1 iters/packet on 1080p bounce-2
-//              packets); spatial splits (SBVH) measured a LOSS there
-//              (+15% leaf visits at 1.11x reference duplication), so
-//              object splits stay.
+//              surface-area * count.  Object splits only: every triangle
+//              lands in exactly one leaf, so leaves stay contiguous ranges
+//              of the permuted triangle array.
 //
 // C ABI for ctypes; caller allocates 2T-sized node arrays (a binary BVH with
 // non-empty leaves has < 2T nodes).

@@ -127,6 +127,8 @@ def raycast_brute(scene, origin, direction, active=None,
     shader's own operation order (:func:`mt_single`): the matmul form's
     ``v0.face - o.face`` cancels catastrophically for short hits (a bounce
     ray leaving a surface, t << |o|), where it keeps only ~2 digits of t.
+    Where the per-ray test rejects the winner, the matmul form's values
+    stand, so a hit always has t > EPS.
     """
     R = origin.shape[0]
     T = scene.v0.shape[0]
@@ -190,12 +192,14 @@ def raycast_brute(scene, origin, direction, active=None,
 
     def refine(near: Nearest) -> Nearest:
         tri = near.tri
-        _, t, u, v = mt_single(origin, direction, scene.v0[tri],
-                               scene.e1[tri], scene.e2[tri], scene.face[tri])
-        hit = near.t < BIG
-        return Nearest(t=jnp.where(hit, t, near.t), tri=tri,
-                       u=jnp.where(hit, u, near.u),
-                       v=jnp.where(hit, v, near.v))
+        valid, t, u, v = mt_single(origin, direction, scene.v0[tri],
+                                   scene.e1[tri], scene.e2[tri], scene.face[tri])
+        # A winner the per-ray test rejects (an edge or t <= EPS decided
+        # the other way) keeps the matmul form's values, which passed.
+        ok = (near.t < BIG) & valid
+        return Nearest(t=jnp.where(ok, t, near.t), tri=tri,
+                       u=jnp.where(ok, u, near.u),
+                       v=jnp.where(ok, v, near.v))
 
     if active is None:
         carry = refine(run_scan(None))
